@@ -1,11 +1,11 @@
-"""AOT memory probe for the streamed segment at beyond-HBM shapes.
+"""AOT memory probe for the streamed segment at beyond-device-memory
+shapes.
 
-Compiles `_streamed_segment` on the attached TPU WITHOUT allocating the
-cache (ShapeDtypeStruct lowering) and prints XLA's buffer-assignment
-memory analysis.  Used to validate that the n=212992 program fits HBM
-before paying a multi-hour run (the round-5 OOM: a 9.75 GiB defensive
-copy of the cache from a lax.cond state fork + a 3.25 GiB rank-3
-unpack intermediate; both removed in streamed_engine).
+Compiles `_streamed_segment` for the default backend WITHOUT allocating
+the cache (ShapeDtypeStruct lowering) and prints XLA's buffer-assignment
+memory analysis, to check that a large program fits device memory
+before paying a multi-hour run (defensive whole-cache copies from a
+lax.cond state fork, or a rank-3 unpack intermediate, show up here).
 
 Usage: python benchmarks/mem_probe_streamed.py [n] [X] [F] [kbatch]
 """

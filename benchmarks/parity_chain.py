@@ -1,15 +1,13 @@
 #!/usr/bin/env python
 """Scale parity chain for the exact-integer packed DNJ engine.
 
-Round-3 left a known n=20000 on-chip mismatch (a late f64-emulation
-tie flip) with nothing committed; the round-4 integer engine removes
-the failure class by construction.  This script is the committed
-evidence chain:
+A float engine can flip a late Q tie on one ulp; the integer engine
+removes that failure class by construction.  This script is the
+committed evidence chain:
 
   1. --vs-batch     packed records (this backend) vs the unpacked
                     quantized batch engine under f64 (CPU-exact on
-                    these half-integer values) — closes the round-3
-                    bisection at any n it is run at (20000 default).
+                    these half-integer values), at any n.
   2. --phy + --c    full Newick byte comparison against the reference
                     binary (`ccphylo tree -m dnj -b`) on the SAME
                     synthetic matrix (benchmarks/synth.py hash; the
@@ -37,8 +35,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# persistent XLA compile cache (VERDICT r3 weak-8: without it every
-# fresh process pays multi-minute remote compiles at large n)
+# persistent XLA compile cache: without it every fresh process pays
+# every compile again
 from ccphylo_tpu.utils.jaxconfig import configure_jax
 configure_jax()
 
@@ -116,8 +114,8 @@ def _gen_mmap_fast(path, n, npad, mod, lo=3, data="hash"):
 
 def run_streamed(n, mod, kbatch, X, F, mmap_path=None,
                  data="hash"):
-    """Beyond-HBM engine: canonical matrix host-side (RAM or disk
-    memmap), chip holds the X-row cache + F-entry patch ring."""
+    """Beyond-device-memory engine: canonical matrix host-side (RAM or
+    disk memmap), the device holds the X-row cache."""
     import resource
     from ccphylo_tpu.tree.packed_engine import limbs_host
     from ccphylo_tpu.tree.streamed_engine import (_pad512,
@@ -191,7 +189,7 @@ def newick_from(n, rec, LI, LJ, dl2):
 
 def vs_batch(n, mod, rec):
     """Unpacked quantized engine, f64 compute (exact on half-integer
-    values) — the round-3 'batch-CPU f64' comparator."""
+    values)."""
     import jax
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
@@ -273,7 +271,7 @@ def main():
     ap.add_argument("--engine", choices=["packed", "streamed"],
                     default="packed")
     ap.add_argument("--X", type=int, default=49152,
-                    help="streamed: cache rows in HBM")
+                    help="streamed: cache rows in device memory")
     ap.add_argument("--F", type=int, default=2048,
                     help="streamed: column-patch ring entries")
     ap.add_argument("--mmap", default=None,

@@ -2,21 +2,17 @@
 """Per-join device-time profiler for the join engines.
 
 Runs one compile segment + one timed warm segment + one traced warm
-segment on the current backend, then summarizes the trace's device-op
-durations (top ops by total time).  This is how the packed engine's
-scan-pass share was established in round 4 (1.16 ms/join at n=32768,
-scan while-loop 75%); round 5 uses it to find the sharded engine's
-~20x per-join overhead (VERDICT r4 item 4).
+segment of SEG joins on the current backend, then reduces the trace's
+device planes: kernel time per join, kernel launches per join, device
+busy share of the traced window, and the top kernels by total time.
 
 Usage:
-  python benchmarks/profile_join.py packed  -n 32768
+  python benchmarks/profile_join.py packed  -n 20000 [--trace-dir D]
   python benchmarks/profile_join.py sharded -n 32768 [--ndev 1]
 """
 
 import argparse
 import glob
-import gzip
-import json
 import os
 import sys
 import time
@@ -43,8 +39,7 @@ def _sync(x):
 def drive_packed(n):
     from benchmarks.synth import device_words
     from ccphylo_tpu.tree.packed_engine import (_packed_init,
-                                                _packed_segment,
-                                                _scan_impl)
+                                                _packed_segment)
     words = device_words(n)
     jax.block_until_ready(words)
     mj = jnp.int32(n)
@@ -53,12 +48,10 @@ def drive_packed(n):
              jnp.zeros(n, jnp.int32), jnp.zeros(n, jnp.int32),
              jnp.zeros(n, jnp.int32), jnp.zeros(n, jnp.int32),
              jnp.zeros(n, jnp.int32), jnp.zeros(4, jnp.int32))
-    si = _scan_impl()
 
     def seg(state, t0):
         return _packed_segment(*state, jnp.int32(t0),
-                               jnp.int32(t0 + SEG), mj, kbatch=128,
-                               scan_impl=si)
+                               jnp.int32(t0 + SEG), mj, kbatch=128)
     return state, seg
 
 
@@ -95,35 +88,45 @@ def drive_sharded(n, ndev):
     return state, seg
 
 
-def summarize_trace(tdir, joins):
-    files = sorted(glob.glob(os.path.join(
-        tdir, "plugins/profile/*/*.trace.json.gz")))
+def summarize_trace(tdir, joins, window_s):
+    """Reduce the newest trace under `tdir`: events on the device
+    planes' stream lines (one per kernel or copy) are the launches."""
+    from jax.profiler import ProfileData
+    files = sorted(glob.glob(os.path.join(tdir, "**", "*.xplane.pb"),
+                             recursive=True))
     if not files:
         print("no trace file found")
         return
-    with gzip.open(files[-1], "rt") as fh:
-        tr = json.load(fh)
-    evs = tr.get("traceEvents", [])
-    # device lanes: pid names containing "TPU" / "/device:"
-    pidname = {}
-    for e in evs:
-        if e.get("ph") == "M" and e.get("name") == "process_name":
-            pidname[e["pid"]] = e["args"].get("name", "")
-    dev_pids = {p for p, nm in pidname.items()
-                if "TPU" in nm or "Device" in nm or "device" in nm}
-    tot = {}
-    total = 0.0
-    for e in evs:
-        if e.get("ph") == "X" and e.get("pid") in dev_pids:
-            d = float(e.get("dur", 0))
-            name = e["name"].split(".")[0]
-            tot[name] = tot.get(name, 0.0) + d
-            total += d
-    print(f"\ndevice total {total / 1e3:.2f} ms over {joins} joins "
-          f"= {total / 1e3 / joins:.3f} ms/join")
+    pd = ProfileData.from_file(files[-1])
+    tot, cnt, spans = {}, {}, []
+    for plane in pd.planes:
+        if not plane.name.startswith("/device:"):
+            continue
+        for line in plane.lines:
+            if not line.name.startswith("Stream"):
+                continue
+            for ev in line.events:
+                tot[ev.name] = tot.get(ev.name, 0.0) + ev.duration_ns
+                cnt[ev.name] = cnt.get(ev.name, 0) + 1
+                spans.append((ev.start_ns, ev.start_ns + ev.duration_ns))
+    if not spans:
+        print("no device stream events in the trace")
+        return
+    spans.sort()
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    total = sum(tot.values())
+    launches = sum(cnt.values())
+    print(f"\ndevice kernel time {total / 1e6:.2f} ms over {joins} joins "
+          f"= {total / 1e6 / joins:.4f} ms/join; {launches} launches "
+          f"= {launches / joins:.1f} launches/join; device busy "
+          f"{busy / 1e6:.2f} ms of the {1e3 * window_s:.2f} ms window")
     for name, d in sorted(tot.items(), key=lambda kv: -kv[1])[:25]:
-        print(f"  {d / 1e3:9.2f} ms  {100 * d / max(total, 1e-9):5.1f}%"
-              f"  {name}")
+        print(f"  {d / 1e6:9.3f} ms  {100 * d / max(total, 1e-9):5.1f}%"
+              f"  x{cnt[name]:<7d} {name[:120]}")
 
 
 def main():
@@ -131,6 +134,8 @@ def main():
     ap.add_argument("engine", choices=["packed", "sharded"])
     ap.add_argument("-n", type=int, default=32768)
     ap.add_argument("--ndev", type=int, default=1)
+    ap.add_argument("--trace-dir", default="profile_traces",
+                    help="where the traced segment's profile is written")
     args = ap.parse_args()
 
     print(f"backend={jax.default_backend()} engine={args.engine} "
@@ -149,11 +154,13 @@ def main():
     dt = time.perf_counter() - t0
     print(f"seg1 warm: {dt:.2f}s = {1e3 * dt / SEG:.2f} ms/join",
           flush=True)
-    tdir = f"/tmp/jtrace_{args.engine}_{args.n}"
+    tdir = os.path.join(args.trace_dir, f"{args.engine}_{args.n}")
     os.makedirs(tdir, exist_ok=True)
     with jax.profiler.trace(tdir):
+        t0 = time.perf_counter()
         state = _sync(seg(state, 2 * SEG))
-    summarize_trace(tdir, SEG)
+        dt = time.perf_counter() - t0
+    summarize_trace(tdir, SEG, dt)
 
 
 if __name__ == "__main__":

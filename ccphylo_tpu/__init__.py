@@ -1,18 +1,20 @@
-"""ccphylo_tpu — a TPU-native phylogenetic distance + tree-building framework.
+"""ccphylo_tpu — a GPU-accelerated phylogenetic distance + tree-building
+framework.
 
 A from-scratch reimplementation of the capabilities of CCPhylo
-(genomicepidemiology/ccphylo, C99 reference) designed TPU-first:
+(genomicepidemiology/ccphylo, C99 reference) on JAX:
 
 - Pairwise SNP/Hamming distances over packed 2-bit nucleotide tensors are
-  computed with tiled XOR/popcount + one-hot matmul kernels (JAX/Pallas, MXU).
+  computed as XOR/popcount on the host or as int8 Gram matrix products on
+  the device (JAX/XLA).
 - Count-matrix (KMA ``.mat``) distances are vectorized column-metric
   reductions (cos/chi2/bc/... families).
 - Neighbor-joining tree construction (dnj/nj/hnj/upgma/cf/ff/mn) runs as
   vectorized Q-criterion maintenance with masked row-min reductions; the join
   loop is the only host-side control flow.
 - The exact engine (numpy, float64) reproduces the reference byte-for-byte
-  (Phylip matrices and Newick trees); the accelerated engine scales the same
-  semantics onto TPU meshes.
+  (Phylip matrices and Newick trees); the device engines scale the same
+  semantics onto one or several GPUs.
 
 Reference layout is documented in SURVEY.md; parity points are cited per
 function as ``reference-file:line``.

@@ -782,8 +782,9 @@ def _use_device() -> bool:
 
 def _batch_shared(seqs, idxs, shared_inc):
     """All-pairs SNP counts for the included samples under the shared
-    mask: TPU MXU kernel when CCPHYLO_TPU_DIST=device, numpy
-    XOR-popcount otherwise.  Integer counts are identical either way.
+    mask: the device int8 Gram kernel (ops/snp_jax.py) when
+    CCPHYLO_TPU_DIST=device, numpy XOR-popcount otherwise.  Integer
+    counts are identical either way.
 
     CCPHYLO_TPU_CKPT=<dir> computes the fill tile-by-tile with each
     finished tile persisted; a restarted run recomputes only missing
@@ -799,16 +800,9 @@ def _batch_shared(seqs, idxs, shared_inc):
     if _use_device():
         from ..utils.jaxconfig import configure_jax
         configure_jax()
-        from ..ops import snp_jax, snp_pallas
+        from ..ops import snp_jax
         s32 = np.stack([snp_jax.u64_to_u32(seqs[i]) for i in idxs])
         pm = snp_jax.inc32_to_pairmask(shared_inc)
-        if snp_pallas.available():
-            try:
-                return np.asarray(snp_pallas.snp_matrix(s32, pm))
-            except Exception as e:  # noqa: BLE001 — Mosaic lowering
-                print("# ccphylo_tpu: pallas SNP kernel failed "
-                      "(%s); falling back to XLA kernel"
-                      % type(e).__name__, file=sys.stderr)
         return np.asarray(snp_jax.snp_matrix(s32, pm))
     return snp.pairwise_shared(S, shared_inc)
 
@@ -818,18 +812,10 @@ def _batch_pairwise(seqs, includes, idxs):
     if _use_device():
         from ..utils.jaxconfig import configure_jax
         configure_jax()
-        from ..ops import snp_jax, snp_pallas
+        from ..ops import snp_jax
         s32 = np.stack([snp_jax.u64_to_u32(seqs[i]) for i in idxs])
         masks = np.stack([snp_jax.inc32_to_pairmask(includes[i])
                           for i in idxs])
-        if snp_pallas.available():
-            try:
-                Dm, Nm = snp_pallas.snp_matrix_pairwise(s32, masks)
-                return np.asarray(Dm), np.asarray(Nm)
-            except Exception as e:  # noqa: BLE001 — Mosaic lowering
-                print("# ccphylo_tpu: pallas SNP kernel failed "
-                      "(%s); falling back to XLA kernel"
-                      % type(e).__name__, file=sys.stderr)
         Dm, Nm = snp_jax.snp_matrix_pairwise(s32, masks)
         return np.asarray(Dm), np.asarray(Nm)
     S = np.stack([seqs[i] for i in idxs])

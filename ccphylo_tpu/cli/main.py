@@ -13,7 +13,7 @@ from .. import __version__
 
 def _help(out) -> int:
     out.write(f"""\
-# CCPhylo-TPU {__version__}: TPU-native phylogenetic analyses on KMA alignments.
+# CCPhylo-TPU {__version__}: GPU-accelerated phylogenetic analyses on KMA alignments.
 #
 # Subcommands:\tDesc:
 # dist\t\tMake distance matrices based on multiple alignments

@@ -195,25 +195,31 @@ def _dispatch_build(flat, n, names, method, flag, precision, dtype,
     """Choose the join engine.
 
     Default: the host exact engine (byte parity with the reference for
-    every method/dtype).  CCPHYLO_TPU_ENGINE selects the TPU-resident
-    DNJ engine for -m dnj on double-precision matrices:
-      device   — float32 state (TPU-native; join order can differ from
-                 the reference by summation ulps)
-      device64 — float64 state (bit-exact trajectory on CPU devices;
-                 on TPU f64 emulation ulps can still flip ties)
+    every method/dtype).  CCPHYLO_TPU_ENGINE selects a device engine:
+      device    — float32 state (join order can differ from the
+                  reference by summation ulps on float data)
+      device64  — float64 state (bit-exact trajectory on integer data)
+      sharded   — row-sharded over every device (parallel/), float32
+      sharded64 — the same in float64 (byte parity on integer data)
+      packed    — u32-packed u8 storage, exact int32 arithmetic (-b)
     """
     eng = os.environ.get("CCPHYLO_TPU_ENGINE", "exact")
-    if eng == "sharded" and method in ("dnj", "nj", "upgma") \
-            and dtype == "d":
+    if eng in ("sharded", "sharded64") \
+            and method in ("dnj", "nj", "upgma") and dtype == "d":
         from ..utils.jaxconfig import configure_jax
-        configure_jax()
+        jax = configure_jax()
+        import jax.numpy as jnp
+        if eng == "sharded64":
+            jax.config.update("jax_enable_x64", True)
+        sdt = jnp.float64 if eng == "sharded64" else jnp.float32
         from ..parallel.multihost import maybe_init_distributed, row_mesh
         maybe_init_distributed()
         mesh = row_mesh()
         if method == "dnj":
             from ..parallel.sharded_dnj import build_tree_sharded_dnj
             return build_tree_sharded_dnj(flat, n, names, mesh,
-                                          flag=flag, precision=precision)
+                                          flag=flag, precision=precision,
+                                          dtype=sdt)
         import numpy as _np
         if (_np.asarray(flat) < 0).any():
             # the sharded nj/upgma engine assumes complete matrices
@@ -226,12 +232,13 @@ def _dispatch_build(flat, n, names, method, flag, precision, dtype,
         D[(iu[0], iu[1])] = flat
         D[(iu[1], iu[0])] = flat
         return build_tree_sharded(D, n, names, mesh, method=method,
-                                  flag=flag, precision=precision)
+                                  flag=flag, precision=precision,
+                                  dtype=sdt)
     if eng in ("packed", "packed64") and method == "dnj" \
             and dtype == "b":
         # single-buffer u32-packed u8 storage with exact-int32
-        # arithmetic (tree/packed_engine.py) — the lowest-HBM
-        # single-chip layout (n^2 bytes total), bit-identical records
+        # arithmetic (tree/packed_engine.py) — the lowest-memory
+        # single-device layout (n^2 bytes total), bit-identical records
         # on every backend by construction.  "packed64" is accepted as
         # an alias (the old f64-compute mode is superseded: integer
         # compute is exact, so there is nothing left for f64 to fix).
@@ -286,7 +293,7 @@ def _dispatch_build(flat, n, names, method, flag, precision, dtype,
             jax.config.update("jax_enable_x64", True)
         if dtype in ("s", "b"):
             # quantized matrix storage on device (u16/u8 ByteScale,
-            # ~65k/~100k taxa on one 16 GB chip); complete matrices only
+            # 2/1 bytes per cell); complete matrices only
             import numpy as _np
             if (_np.asarray(flat) < 0).any():
                 return build_tree(flat, n, names, method, flag,

@@ -1,6 +1,6 @@
 """Native (C++) host-runtime kernels with transparent build + fallback.
 
-The TPU compute path is JAX/XLA; this package accelerates the host
+The device compute path is JAX/XLA; this package accelerates the host
 runtime around it — the same loops the reference keeps in C
 (phy.c loadPhy/printphy, matparse.c, qseqs.c qseq2nibble).  The shared
 library is compiled on first import (g++ -O3, cached next to the

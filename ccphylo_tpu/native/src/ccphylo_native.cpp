@@ -1,6 +1,6 @@
-// ccphylo_native — host-side runtime kernels for the TPU framework.
+// ccphylo_native — host-side runtime kernels for the framework.
 //
-// The TPU compute path (distance kernels, join engines) lives in
+// The device compute path (distance kernels, join engines) lives in
 // JAX/XLA; this library is the *runtime around it*: the data-loader and
 // formatter hot loops that the reference implements in C
 // (phy.c:251-507 loadPhy, phy.c:59-123 printphy, matparse.c:45-317,

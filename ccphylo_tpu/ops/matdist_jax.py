@@ -5,7 +5,7 @@ The reference computes `.mat` distances per pair by re-streaming files
 samples' count matrices live as one (k, L, 6) tensor and every pair's
 per-position metric reduces on the VPU, chunked over positions
 (genome axis = lane axis; position chunks stream host->device, so the
-kernel works on matrices far larger than HBM).
+kernel works on matrices far larger than device memory).
 
 Implemented metric: cos (the default, coscmp matcmp.c:420-446):
 

@@ -14,12 +14,8 @@ def topk_mask_indices(mask, idx, K):
     deterministic, cheaper than a partial sort, and has no
     data-dependent pathologies.
 
-    History: the round-1/2 ">32k taxa" worker crashes were first
-    blamed on a top_k livelock; that theory was falsified (both top_k
-    and this compaction crashed above 32k).  The real cause — measured
-    in round 3 — is the runtime's execution-time watchdog on any
-    single XLA execution past ~15-30 s; see tree/segmenting.py.  This
-    compaction is kept because it is cheaper and fully predictable.
+    This compaction is used over top_k because it is cheaper and fully
+    predictable.
     """
     cmi = mask.astype(jnp.int32)
     # rank r_i = number of set positions with index > i: 0 for the

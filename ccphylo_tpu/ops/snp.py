@@ -6,9 +6,8 @@ Parity sources:
   fsacmp.c:487-503 (getNpos), fsacmp.c:355-485 (maskProxi).
 
 The bit-serial C loops become XOR + pair-OR + popcount vector ops.  The
-TPU path reformulates the same counts as one-hot int8 Gram matmuls
-(ops/snp_jax.py, with the Pallas expansion kernel in
-ops/snp_pallas.py); results are integer-identical.
+device path reformulates the same counts as int8 Gram matrix products
+(ops/snp_jax.py); results are integer-identical.
 """
 
 from __future__ import annotations

@@ -1,24 +1,30 @@
-"""TPU/JAX pairwise SNP-distance kernels over packed 2-bit sequences.
+"""Device (JAX) pairwise SNP-distance kernels over packed 2-bit sequences.
 
 Host semantics (ops/snp.py; reference fsacmp.c:552-633) are reproduced
-with an MXU-first formulation:
+as int8 Gram matrix products, the formulation that puts the O(n² L)
+pair outer product on the tensor cores (elementwise XOR/popcount
+formulations materialize (n, n, W) intermediates and are bound by
+device-memory traffic):
 
-    matches(i,j) = X_i · X_j      X = one-hot(4 planes/base), masked
+    matches(i,j) = X_i · X_j      X = one-hot (4 planes per base), masked
     shared(i,j)  = M_i · M_j      M = include-mask plane
-    D(i,j)       = shared - matches
+    D(i,j)       = shared − matches
 
-Both are int8 matmuls with int32 accumulation — the contraction runs on
-the systolic array, which is the only unit that can amortize the
-O(n² L) pair outer-product (elementwise XOR/popcount formulations
-materialize (n, n, W) intermediates and drown in HBM traffic).  Counts
-are exact: matches ≤ L < 2^31.
+Both are int8 dots with int32 accumulation, which XLA hands to cuBLAS's
+int8 GEMM on the GPU.  Counts are exact: matches ≤ L < 2^31.
 
-The genome axis is processed in chunks (``lax.fori_loop`` accumulating
-the (n, n) Gram matrix), so peak memory is one (n, 64·Wc) int8 block —
-the one-hot expansion never materializes fully.
+The genome axis is processed in chunks (``lax.scan`` accumulating the
+(n, n) Gram matrix), so peak memory is one (n, 64·WCHUNK) int8
+expansion; the full one-hot matrix never materializes.
 
-Multi-chip: `sharded_snp_matrix` shards sample rows over a mesh axis;
-jit/GSPMD inserts the all-gather of the opposing block over ICI.
+A ±1 three-plane code (0.75x the multiply-accumulates) with
+lower-triangular row-block dots was timed against this formulation on
+an H100 and lost at both n=1024, L=5 Mbp and n=4096, L=1 Mbp: the
+block slices and the stacked expansion cost more device-memory traffic
+than the smaller GEMMs saved.
+
+Multi-device: `sharded_snp_matrix` shards sample rows over a mesh axis;
+jit/GSPMD inserts the all-gather of the opposing block.
 """
 
 from __future__ import annotations
@@ -60,29 +66,37 @@ def inc32_to_pairmask(inc32: np.ndarray) -> np.ndarray:
     return x
 
 
-def _onehot_planes(seqs: jnp.ndarray, pairmask: jnp.ndarray):
+_SHIFTS = np.arange(15, -1, -1, dtype=np.uint32) * 2  # base k at 30-2k
+
+
+def _onehot_planes(seqs, masks):
     """(n, W) u32 packed words + (n|1, W) u32 pair masks ->
-    (n, W*64) int8 one-hot X and (n, W*16) int8 include plane M.
+    (n, 64W) int8 one-hot X (4 planes per base, zeroed where the
+    include bit is clear) and (n|1, 16W) int8 include plane M.
 
     Word layout (qseq2nibble, qseqs.c:60-88): base k of a word sits at
-    bits (30-2k, 31-2k); its include bit is pair-mask bit (30-2k).
-    """
-    shifts = jnp.arange(15, -1, -1, dtype=jnp.uint32) * 2  # [30, ..., 0]
-    b = (seqs[..., None] >> shifts) & jnp.uint32(3)
-    inc = (pairmask[..., None] >> shifts) & jnp.uint32(1)
-    inc = jnp.broadcast_to(inc, b.shape)
+    bits (30-2k, 31-2k); its include bit is pair-mask bit (30-2k)."""
+    sh = jnp.asarray(_SHIFTS)
+    b = (seqs[..., None] >> sh) & jnp.uint32(3)
+    inc = (masks[..., None] >> sh) & jnp.uint32(1)
     planes = (b[..., None] == jnp.arange(4, dtype=jnp.uint32)) \
         & (inc[..., None] != 0)
-    n = seqs.shape[0]
-    X = planes.astype(jnp.int8).reshape(n, -1)
-    M = inc.astype(jnp.int8).reshape(n, -1)
+    X = planes.astype(jnp.int8).reshape(seqs.shape[0], -1)
+    M = inc.astype(jnp.int8).reshape(masks.shape[0], -1)
     return X, M
 
 
-def _matmul_counts(X: jnp.ndarray, Y: jnp.ndarray) -> jnp.ndarray:
-    return jax.lax.dot_general(
-        X, Y, (((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.int32)
+def _gram(X):
+    """X X^T as one int8 dot with int32 accumulation."""
+    return jax.lax.dot_general(X, X, (((1,), (1,)), ((), ())),
+                               preferred_element_type=jnp.int32)
+
+
+def _npos(pm):
+    """Included positions of u32 pair-mask words (include bits sit at
+    the even bit positions)."""
+    return jax.lax.population_count(
+        pm & jnp.uint32(0x55555555)).sum(dtype=jnp.int32)
 
 
 def _pad_w(a, wchunk):
@@ -108,9 +122,8 @@ def snp_matrix(seqs: jnp.ndarray, paircmask: jnp.ndarray,
     def body(c, w):
         blk = jax.lax.dynamic_slice(seqs, (0, w * wchunk), (n, wchunk))
         mblk = jax.lax.dynamic_slice(pm, (0, w * wchunk), (1, wchunk))
-        X, M = _onehot_planes(blk, mblk)
-        return (c[0] + _matmul_counts(X, X),
-                c[1] + M[0].astype(jnp.int32).sum(dtype=jnp.int32)), None
+        X, _ = _onehot_planes(blk, mblk)
+        return (c[0] + _gram(X), c[1] + _npos(mblk)), None
 
     (matches, npos), _ = jax.lax.scan(
         body, (jnp.zeros((n, n), jnp.int32), jnp.int32(0)),
@@ -137,8 +150,7 @@ def snp_matrix_pairwise(seqs: jnp.ndarray, incmasks: jnp.ndarray,
         mblk = jax.lax.dynamic_slice(incmasks, (0, w * wchunk),
                                      (n, wchunk))
         X, M = _onehot_planes(blk, mblk)
-        return (c[0] + _matmul_counts(X, X),
-                c[1] + _matmul_counts(M, M)), None
+        return (c[0] + _gram(X), c[1] + _gram(M)), None
 
     (matches, shared), _ = jax.lax.scan(
         body, (jnp.zeros((n, n), jnp.int32),
@@ -146,15 +158,10 @@ def snp_matrix_pairwise(seqs: jnp.ndarray, incmasks: jnp.ndarray,
     return shared - matches, shared
 
 
-def matmul_snp_matrix(seqs_onehot: jnp.ndarray, n_included: int):
-    """Direct MXU entry for pre-built one-hot matrices."""
-    return n_included - _matmul_counts(seqs_onehot, seqs_onehot)
-
-
 def sharded_snp_matrix(seqs: np.ndarray, paircmask: np.ndarray,
                        mesh: Mesh, axis: str = "d") -> np.ndarray:
-    """Multi-chip all-pairs SNP counts: sample rows sharded over `axis`;
-    XLA all-gathers the opposing operand block over ICI."""
+    """Multi-device all-pairs SNP counts: sample rows sharded over
+    `axis`; XLA all-gathers the opposing operand block."""
     n, W = seqs.shape
     ndev = mesh.shape[axis]
     npad = -(-n // ndev) * ndev
@@ -168,9 +175,7 @@ def sharded_snp_matrix(seqs: np.ndarray, paircmask: np.ndarray,
     @functools.partial(jax.jit,
                        out_shardings=NamedSharding(mesh, P(axis, None)))
     def compute(sd, pm):
-        X, M = _onehot_planes(sd, pm[None, :])
-        matches = _matmul_counts(X, X)
-        npos = M[0].astype(jnp.int32).sum(dtype=jnp.int32)
-        return npos - matches
+        X, _ = _onehot_planes(sd, pm[None, :])
+        return _npos(pm) - _gram(X)
 
     return np.asarray(compute(sd, pm))[:n, :n]

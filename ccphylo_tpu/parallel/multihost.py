@@ -5,8 +5,8 @@ SURVEY.md §2.7); multi-host execution is new capability.  All engines
 in this package (parallel/sharded_nj.py, parallel/sharded_dnj.py,
 ops/snp_jax.sharded_snp_matrix) are written against a 1-D
 `jax.sharding.Mesh` over row blocks, so the same compiled program runs
-on one chip, one host (ICI), or a multi-host slice (ICI within hosts,
-DCN across) — GSPMD places the collectives.
+on one device, on the GPUs of one host (NVLink), or across hosts —
+GSPMD places the collectives.
 
 Environment-driven init (for launchers like GKE/JobSet or manual
 mpirun-style starts):
@@ -15,7 +15,8 @@ mpirun-style starts):
   CCPHYLO_TPU_NUM_PROCS    total process count
   CCPHYLO_TPU_PROC_ID      this process's index
 
-On Cloud TPU these are auto-detected by jax.distributed when unset.
+Set CCPHYLO_TPU_AUTO_DISTRIBUTED=1 on a cluster whose launcher
+jax.distributed can auto-detect (e.g. SLURM).
 """
 
 from __future__ import annotations

@@ -1,17 +1,17 @@
 """Mesh-sharded Dynamic Neighbor-Joining (the 100k-1M-taxa engine).
 
 The reference scales DNJ with pthread row scans over shared memory and
-mmap out-of-core matrices (dnj.c:505-605, matrix.c:116).  TPU-native
+mmap out-of-core matrices (dnj.c:505-605, matrix.c:116).  Device
 redesign: the square distance matrix is row-block sharded over a device
-mesh (HBM is the memory pool; a 1M-taxa f32 matrix is 4 TB — a pod
-problem by construction), and every join runs as
+mesh (device memory is the pool; a 1M-taxa f32 matrix is 4 TB), and
+every join runs as
 
   1. *sharded candidate revalidation*: each device keeps the DNJ row
      caches (Q[i], P[i]) for its own row block and recomputes only rows
      whose cached bound beats the running global minimum, in fused
      (K, n) blocks (the sharded version of tree/jax_engine.py's
      scan="batch"); candidate picks merge with a deterministic
-     allreduce-argmin over ICI (value min, larger global row wins a
+     allreduce-argmin (value min, larger global row wins a
      tie — the same rule as the single-chip batch engine).
   2. *join application*: the two merged rows are psum-broadcast
      (O(n) each); every device updates its own rows' column entries and
@@ -60,11 +60,8 @@ def _dnj_programs(mesh: Mesh, axis: str, npad: int, n: int,
                   dtype_name: str, neg: bool):
     """(init, segment) jitted shard_map programs.
 
-    Round-4 split: the join loop dispatches as host-driven segments
-    (tree/segmenting.py) exactly like the single-chip engines, so no
-    single XLA execution outlives the runtime watchdog at any n —
-    the round-3 monolithic whole-loop program capped TPU runs at
-    whatever finished in ~15 s."""
+    The join loop dispatches as host-driven segments
+    (tree/segmenting.py) exactly like the single-device engines."""
     dtype = jnp.dtype(dtype_name)
     ndev = mesh.shape[axis]
     R = npad // ndev
@@ -122,7 +119,7 @@ def _dnj_programs(mesh: Mesh, axis: str, npad: int, n: int,
 
         def bcast_row(Dl, r):
             """psum-broadcast global row r of the live local block
-            (O(n) over ICI)."""
+            (O(n) across devices)."""
             own, lr = own_row(r)
             return jax.lax.psum(
                 jnp.where(own, Dl[lr], jnp.zeros(npad, dtype)), axis)
@@ -134,11 +131,10 @@ def _dnj_programs(mesh: Mesh, axis: str, npad: int, n: int,
 
         def col_set(Dl, col, vals_l, on_l):
             """Column write as an aligned 128-column tile RMW: a
-            traced-column scatter materializes a fresh (R, npad)
-            output every join (profiled: ~12.6 ms/join of pure copy
-            at n=32768 — 2/3 of the engine's 17x overhead vs the
-            packed engine), while full-tile DS/DUS updates the loop
-            carry in place."""
+            traced-column scatter has materialized a fresh (R, npad)
+            output every join (a whole-shard copy), while full-tile
+            DS/DUS updates the loop carry in place.  Not measured on
+            the GPU yet."""
             w0 = ((col // 128) * 128).astype(jnp.int32)
             tile = jax.lax.dynamic_slice(
                 Dl, (jnp.int32(0), w0), (R, 128))

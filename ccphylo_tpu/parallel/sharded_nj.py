@@ -2,12 +2,12 @@
 
 The scale path for huge matrices (reference: pthread row scans over a
 shared-memory ltd matrix, nj.c:412-522 / dnj.c:505-605, with mmap
-out-of-core at matrix.c:116).  TPU-native redesign: the full square
+out-of-core at matrix.c:116).  Device redesign: the full square
 distance matrix is row-block sharded over a device mesh; every join
 iteration does
 
-  1. a local masked argmin over each device's row block (VPU),
-  2. an allreduce-argmin over ICI (``lax.all_gather`` of the per-device
+  1. a local masked argmin over each device's row block,
+  2. an allreduce-argmin (``lax.all_gather`` of the per-device
      candidates — the reference's shared global (Min, Pos) under a
      spinlock, dnj.c:497-503, becomes a deterministic collective),
   3. a rank-1 update of the sharded matrix: every device refreshes the
@@ -77,7 +77,7 @@ def _join_program(mesh: Mesh, axis: str, npad: int, n: int,
                      & (gi[:, None] > cols[None, :]))
             Qm = jnp.where(valid, Q, BIG)
 
-            # local first-wins argmin, then allreduce-argmin over ICI
+            # local first-wins argmin, then allreduce-argmin
             flat = Qm.reshape(-1)
             k = jnp.argmin(flat)
             li, lj = k // npad, k % npad

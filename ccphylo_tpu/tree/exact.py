@@ -310,8 +310,10 @@ _POOLS: dict = {}
 
 def _scan_pool(t: int):
     """Persistent thread pool for the batched Q scan (numpy releases
-    the GIL in the gather/arithmetic, so 2 workers ~halve the pass on
-    this 2-CPU box).  Keyed by size; never shut down (daemon threads)."""
+    the GIL in the gather/arithmetic, so 2 workers ~halve the pass on a
+    2-CPU host).  Keyed by size and never shut down explicitly: the
+    workers are not daemon threads, so the interpreter joins the idle
+    workers at exit."""
     import concurrent.futures as cf
     p = _POOLS.get(t)
     if p is None:

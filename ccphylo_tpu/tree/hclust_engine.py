@@ -1,4 +1,4 @@
-"""TPU-native engines for the heuristic/UPGMA join family.
+"""Device engines for the heuristic/UPGMA join family.
 
 Device-resident counterparts of the reference's hclust machinery
 (hclust.c:56-1720, dnj.c:217-293, nj.c:297-362), sharing the segmented

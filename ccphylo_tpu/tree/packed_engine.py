@@ -1,34 +1,27 @@
 """Single-buffer, u32-packed, exact-integer DNJ — the 100k+-taxa
-single-chip engine.
+single-device engine.
 
 Reference scaling tools for huge runs are u8/u16 ByteScale matrices and
 mmap out-of-core storage (matrix.c:116, bytescale.h:22-23, dnj.c:1054).
-TPU-native equivalent: the quantized (u8) distance matrix lives in HBM
-as one **uint32 buffer, four cells per word** (n^2 bytes total, 10.1 GB
-at n=100352 on a 16 GB chip).
+The device equivalent: the quantized (u8) distance matrix lives in
+device memory as one **uint32 buffer, four cells per word** (n^2 bytes
+in all: 10.1 GB at n=100352, 45.4 GB at n=212992).
 
-Why one buffer (round-4 redesign): the round-1 ">4 GiB buffer" and
-"narrow dtype" worker crashes were retroactively explained by the
-execution-time watchdog (tree/segmenting.py); measured this round, a
-single 10 GB u32 buffer supports gathers, row writes and column
-slice-updates at full speed, while the old 8-block layout paid an 8x
-gather over-read plus per-block switch/slice overhead — the measured
-100k-taxa cost of that was 16 ms/join vs ~3 ms/join of single-buffer
-primitives (row read 27 us, row write 35 us, column read 0.32 ms,
-column write 0.48 ms, 128-row scan pass 0.34 ms).
+Why one buffer: one u32 buffer serves row gathers, row writes and
+column slice-updates directly, where a row-blocked layout pays a
+gather over-read plus per-block select/slice work on every join.
 
-Why integer arithmetic (round-4 redesign): every quantity of the
-quantized engine is an exact multiple of u = 1/(2*ByteScale) — cells
-are c/bs, updateD's (D_ik+D_kj-D_ij)/2 is (ci+cj-cij)*u, row sums and
-Q-criterion values are integer combinations of those.  Computing the
-whole trajectory in int32 "u units" makes every comparison EXACT on any
-backend: CPU and TPU produce bit-identical join records by
-construction, with no f64-emulation or summation-order ulp exposure
-(the round-3 n=20000 packed64-vs-host mismatch was exactly such an ulp
-tie flip; integers cannot tie-flip).  The reference's own f64 engine
-performs the same arithmetic exactly whenever cells/bs is f64-exact
-(any dyadic ByteScale, incl. the default 1.0) — so join records match
-the C bit-for-bit at any n, provably, not statistically.  int32 bounds:
+Why integer arithmetic: every quantity of the quantized engine is an
+exact multiple of u = 1/(2*ByteScale) — cells are c/bs, updateD's
+(D_ik+D_kj-D_ij)/2 is (ci+cj-cij)*u, row sums and Q-criterion values
+are integer combinations of those.  Computing the whole trajectory in
+int32 "u units" makes every comparison EXACT on any backend: CPU and
+GPU produce bit-identical join records by construction, with no
+summation-order ulp exposure (a float engine can flip a Q tie on one
+ulp; integers cannot).  The reference's own f64 engine performs the
+same arithmetic exactly whenever cells/bs is f64-exact (any dyadic
+ByteScale, incl. the default 1.0) — so join records match the C
+bit-for-bit at any n, provably, not statistically.  int32 bounds:
 |Q_u| <= 2*n*255 + 2*(2*n*255) ~ 1.53e9 < 2^31 at n = 1M.
 
 Limb lengths involve divisions and are NOT integers; the device
@@ -63,13 +56,13 @@ IBIG = np.int32(np.iinfo(np.int32).max)
 
 def _bucket512(base: int) -> int:
     """Round a 512-multiple up to the next canonical size: above 16384
-    rows, eighth-steps of powers of two (<= 12.5% row overhead).  A
-    fresh 100k-class shape costs 10-20 min of remote XLA compile on
-    this runtime and the persistent cache only matches exact shapes;
-    bucketing amortizes one compile across every n in the bucket
-    (join records are npad-invariant — padding rows are inactive by
-    the m_t masks — so results are unchanged, tested).  Disable with
-    CCPHYLO_TPU_BUCKET=0."""
+    rows, eighth-steps of powers of two (<= 12.5% row overhead).  The
+    persistent compile cache only matches exact shapes, so bucketing
+    lets one compile serve every n in the bucket (join records are
+    npad-invariant — padding rows are inactive by the m_t masks — so
+    results are unchanged, tested).  Whether the saved compiles are
+    worth the padded rows every scan reads is not measured yet.
+    Disable with CCPHYLO_TPU_BUCKET=0."""
     import os
     if base <= 16384 or os.environ.get("CCPHYLO_TPU_BUCKET",
                                        "1") == "0":
@@ -80,9 +73,9 @@ def _bucket512(base: int) -> int:
 
 def _pad_packed(n: int, nb: int = 1) -> int:
     """Rows padded to a multiple of 512 (word width W = npad/4 is then
-    a lane multiple), then to a canonical compile-cache bucket.  `nb`
-    is accepted for API compatibility with the round-3 blocked layout
-    and ignored."""
+    a multiple of 128), then to a canonical compile-cache bucket.  `nb`
+    is accepted for API compatibility with the old blocked layout and
+    ignored."""
     return _bucket512(max(-(-n // 512) * 512, 512))
 
 
@@ -103,37 +96,36 @@ def _pack_bytes(v):
             | (r[..., 3] << jnp.uint32(24)))
 
 
-def _scan_impl() -> str:
-    """Batch-scan row-min implementation: 'pallas' fuses the gather +
-    unpack + Q + reductions into a scalar-prefetch streaming kernel
-    (ops/scan_pallas.py; the scan is 75% of device join time at 32k,
-    and XLA's gather formulation runs ~7x under the roofline);
-    'jnp' is the plain XLA formulation.  'auto' = pallas on TPU."""
-    import os
-    v = os.environ.get("CCPHYLO_TPU_SCAN", "auto")
-    if v == "auto":
-        # 'jnp' on every backend: the round-4 scan_pallas kernel fails
-        # Pallas TPU lowering ((1, W) BlockSpec violates the 8x128
-        # tiling rule) — every measured packed-engine number was on
-        # the jnp path.  Set CCPHYLO_TPU_SCAN=pallas only after
-        # benchmarks/tpu_smoke.py proves the kernel on the chip.
-        return "jnp"
-    return v
+def qrow_mins(words, sD2, rows, co, idx):
+    """Q-row minima of the DNJ batch scan: gather the K rows `rows` of
+    the packed matrix, unpack, form the integer Q row
+    q[c] = co*cell[r, c] - sD2[r] - sD2[c] over c < r, and reduce.
+
+    words: (n, W) uint32; sD2: (n,) int32 row sums in u units; rows:
+    (K,) int32 (entries may repeat; 0 marks padding, whose lanes the
+    caller masks); co: int32 scalar; idx: (n,) int32 column indices.
+    Returns (rmin, rarg) int32 (K,): the row minimum and the LARGEST
+    column achieving it (the engine's last-wins tie rule)."""
+    big = jnp.int32(IBIG)
+    cells = _unpack_words(words[rows]).astype(jnp.int32)    # (K, n)
+    q = co * cells - sD2[rows][:, None] - sD2[None, :]
+    q = jnp.where(idx[None, :] < rows[:, None], q, big)
+    rmin = q.min(axis=1)
+    rarg = jnp.where(q == rmin[:, None], idx[None, :], -1) \
+        .max(axis=1).astype(jnp.int32)
+    return rmin, rarg
 
 
-def _mk_one_join_packed(n, W, m, kbatch, scan_impl=None):
+def _mk_one_join_packed(n, W, m, kbatch):
     """one_join body over the single u32-packed buffer; m is a traced
     scalar closed over.  All arithmetic int32 in u = 1/(2*ByteScale)
     units; cells read as c (quantized byte), Q as 2*(m_t-2)*c - 2sD_i -
     2sD_k."""
     big = jnp.int32(IBIG)
-    if scan_impl is None:
-        scan_impl = _scan_impl()
-    # materialized constant, NOT an iota: the iota form lands the
-    # XLA:TPU buffer assigner on the wrong side of a heuristic that
-    # copies the whole words buffer into the scan-while state
-    # (measured: 1.002 GiB HLO temp at n=32768 / OOM at n=100352 with
-    # iota, 0.001 GiB with the constant — bit-identical HLO otherwise)
+    # materialized constant, not an iota: with the iota form XLA's
+    # buffer assignment has copied the whole words buffer into the
+    # scan-while state (an n^2-byte temp); the constant keeps it
+    # aliased.  Not yet checked on the GPU compiler.
     idx = jnp.asarray(np.arange(n, dtype=np.int32))
     ff = jnp.uint32(0xFF)
 
@@ -167,26 +159,15 @@ def _mk_one_join_packed(n, W, m, kbatch, scan_impl=None):
 
         # `words` rides the while carry as an explicit pass-through:
         # a buffer merely CLOSED OVER by the loop body gets threaded
-        # into the while state as a defensive copy (measured: +9.38 GiB
-        # HLO temp at n=100352 -> OOM), while an explicit carry leaf
-        # aliases in place.
+        # into the while state as a defensive copy (an n^2-byte HLO
+        # temp), while an explicit carry leaf aliases in place.
         def bbody(c):
             minv, pi, pj, Q, P, np_, words = c
             cm = cand_mask(Q, minv)
             rows = topk_mask_indices(cm, idx, kbatch)
             valid = rows >= 1
             r = jnp.where(valid, rows, 0)
-            if scan_impl == "pallas":
-                from ..ops.scan_pallas import qrow_mins
-                rmin, rarg = qrow_mins(r, co, words, sD2)
-            else:
-                Crows = cells_of(words[r])                  # (K, n)
-                q = co * Crows - sD2[r][:, None] - sD2[None, :]
-                ok = idx[None, :] < r[:, None]
-                q = jnp.where(ok, q, big)
-                rmin = q.min(axis=1)
-                rarg = jnp.where(q == rmin[:, None], idx[None, :], -1) \
-                    .max(axis=1).astype(jnp.int32)
+            rmin, rarg = qrow_mins(words, sD2, r, co, idx)
             # C-exact cache gating (see jax_engine.dnj_joins batch_scan)
             rminv = jnp.where(valid, rmin, big)
             rm = jax.lax.cummin(
@@ -257,9 +238,8 @@ def _mk_one_join_packed(n, W, m, kbatch, scan_impl=None):
         # unconditionally.  No dynamic lane shifts, no RMW dependency
         # on the big buffer: the RMW formulation made XLA assign the
         # scan loop a {1,0} layout for `words` and insert a full
-        # layout-conversion copy of it per join (measured round 4:
-        # copy.23 u32[n,W]{1,0} in the optimized HLO; 1.0 GiB/join at
-        # n=32768, compile-time HBM OOM at n=100352).
+        # layout-conversion copy of it per join (an n^2-byte copy in
+        # the optimized HLO).
         def write_word_col(words, wcol, srow, srow_bytes):
             lanes = []
             for la in range(4):
@@ -350,8 +330,8 @@ def _mk_one_join_packed(n, W, m, kbatch, scan_impl=None):
 # ---------------------------------------------------------------------
 # init: chunked device programs over a non-donated input buffer.  The
 # buffer must NOT be threaded through lax.scan/while state (defensive
-# copy of the full 10 GB, measured round 3) nor donated-and-returned
-# (same copy); instead each group call takes `words` as a plain input
+# copy of the whole matrix) nor donated-and-returned (same copy);
+# instead each group call takes `words` as a plain input
 # and unrolls static-shaped dynamic slices from a traced row offset —
 # one compile serves every group.
 
@@ -447,12 +427,12 @@ def _packed_init(words, m):
     return sD2, Q, P, seed0
 
 
-@functools.partial(jax.jit, static_argnames=("kbatch", "scan_impl"),
+@functools.partial(jax.jit, static_argnames=("kbatch",),
                    donate_argnums=tuple(range(11)))
 def _packed_segment(words, sD2, Q, P, seed, I, J, DIJ2, SDI2, SDJ2,
-                    stats, t0, t1, m, kbatch=128, scan_impl="jnp"):
+                    stats, t0, t1, m, kbatch=128):
     n, W = words.shape
-    one_join = _mk_one_join_packed(n, W, m, kbatch, scan_impl)
+    one_join = _mk_one_join_packed(n, W, m, kbatch)
     return jax.lax.fori_loop(
         t0, t1, one_join,
         (words, sD2, Q, P, seed, I, J, DIJ2, SDI2, SDJ2, stats))
@@ -537,11 +517,9 @@ def dnj_joins_packed(words, m, kbatch: int = 128, hooks=None):
                  jnp.zeros(n, jnp.int32), jnp.zeros(4, jnp.int32))
         start = 0
 
-    scan_impl = _scan_impl()
-
     def seg_call(state, t0, t1):
         return _packed_segment(*state, jnp.int32(t0), jnp.int32(t1),
-                               mj, kbatch=kbatch, scan_impl=scan_impl)
+                               mj, kbatch=kbatch)
 
     last_ckpt = [_t.perf_counter()]
 

@@ -2,7 +2,7 @@
 
 The reference's only resume mechanisms are row-append
 (`printphyUpdate`, phy.c:201-249 — kept as `dist -a`) and stream seek
-checkpoints (fbseek.c).  For the TPU build the expensive artifact is
+checkpoints (fbseek.c).  Here the expensive artifact is
 the O(n² L) pairwise fill itself, so we checkpoint it directly: the
 lower-triangular (block-row, block-col) tile grid of the distance
 matrix is computed tile by tile, each finished tile persisted

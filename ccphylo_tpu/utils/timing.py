@@ -3,7 +3,7 @@
 The reference's observability is two stderr timing lines around matrix
 load and tree construction (tree.c:81-109); those exact lines are
 emitted unconditionally by the CLI for parity.  This module adds the
-TPU build's own instrumentation, off by default so stdout/stderr stay
+framework's own instrumentation, off by default so stdout/stderr stay
 reference-shaped:
 
 - CCPHYLO_TPU_PROFILE=stderr  — per-phase wall times + throughput

@@ -143,7 +143,7 @@ def test_packed_newick_vs_host_exact_midsize():
 def test_packed_checkpoint_resume(tmp_path, monkeypatch):
     """Kill-and-resume: a run killed after a mid-run checkpoint and
     restarted from the snapshot produces byte-identical records to an
-    uninterrupted run (VERDICT r3 item 8; reference analog
+    uninterrupted run (reference analog
     printphyUpdate resume, phy.c:201-249)."""
     import ccphylo_tpu.tree.packed_engine as pe
 

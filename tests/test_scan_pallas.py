@@ -1,10 +1,5 @@
-"""qrow_mins (Pallas batch-scan kernel) parity vs the jnp batch-scan
-expression in tree/packed_engine.py.
-
-On the CPU test backend the kernel runs in the Pallas interpreter; on
-TPU the compiled kernel is additionally smoke-tested by
-benchmarks/tpu_smoke.py before a round ends (VERDICT r4 item 1: the
-round-4 kernel was interpret-green but failed TPU lowering).
+"""qrow_mins (the packed DNJ engine's batch scan, tree/packed_engine.py)
+vs an independent numpy evaluation of the same Q-row minima.
 """
 
 import numpy as np
@@ -13,7 +8,7 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from ccphylo_tpu.ops.scan_pallas import qrow_mins  # noqa: E402
+from ccphylo_tpu.tree.packed_engine import qrow_mins  # noqa: E402
 
 IBIG = 2 ** 31 - 1
 
@@ -37,9 +32,9 @@ def _reference(rows, co, words, sd2):
 
 
 def _run(rows, co, words, sd2):
-    return qrow_mins(jnp.asarray(rows, jnp.int32), jnp.int32(co),
-                     jnp.asarray(words), jnp.asarray(sd2, jnp.int32),
-                     interpret=jax.default_backend() != "tpu")
+    return qrow_mins(jnp.asarray(words), jnp.asarray(sd2, jnp.int32),
+                     jnp.asarray(rows, jnp.int32), jnp.int32(co),
+                     jnp.arange(words.shape[0], dtype=jnp.int32))
 
 
 def test_qrow_mins_parity():
@@ -100,33 +95,3 @@ def test_qrow_mins_repeated_rows():
     emin, earg = _reference(rows, co, words, sd2)
     np.testing.assert_array_equal(np.asarray(rmin), emin)
     np.testing.assert_array_equal(np.asarray(rarg), earg)
-
-
-def test_engine_pallas_scan_matches_jnp(monkeypatch):
-    """dnj_joins_packed records are bit-identical between the two scan
-    implementations (interpret mode on CPU)."""
-    import jax.numpy as jnp
-    import ccphylo_tpu.ops.scan_pallas as sp
-    from ccphylo_tpu.tree import packed_engine as pe
-
-    rng = np.random.RandomState(5)
-    n = 100
-    npad = pe._pad_packed(n)
-    qv = rng.randint(0, 200, n * (n - 1) // 2).astype(np.uint8)
-    Dq = np.zeros((npad, npad), np.uint8)
-    iu = np.tril_indices(n, -1)
-    Dq[(iu[0], iu[1])] = qv
-    Dq[(iu[1], iu[0])] = qv
-
-    real_qrow = sp.qrow_mins
-
-    def interp_qrow(rows, co, words, sd2):
-        return real_qrow(rows, co, words, sd2, interpret=True)
-
-    monkeypatch.setattr(sp, "qrow_mins", interp_qrow)
-    monkeypatch.setenv("CCPHYLO_TPU_SCAN", "jnp")
-    rj = pe.dnj_joins_packed(pe.pack_words(Dq.copy()), jnp.int32(n))
-    monkeypatch.setenv("CCPHYLO_TPU_SCAN", "pallas")
-    rp = pe.dnj_joins_packed(pe.pack_words(Dq.copy()), jnp.int32(n))
-    for a, b in zip(rj[:6], rp[:6]):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

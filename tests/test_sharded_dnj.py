@@ -126,7 +126,7 @@ def test_sharded_tie_exact_integer(ndev, n=160, seed=41):
 
 
 def test_device_count_invariance_4k(n=4096, seed=13):
-    """Engine-relevant scale (VERDICT r4 item 4): tie-dense integer
+    """Engine-relevant scale: tie-dense integer
     data at n=4096 — 8-device records must equal the single-chip batch
     engine's (the widest device-count gap; the reference's
     thread-count-independence guarantee, nj.c:492-510, at a size where

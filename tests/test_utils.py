@@ -132,3 +132,21 @@ def test_profile_stderr(tmp_path):
              "CCPHYLO_TPU_PROFILE": "stderr"})
     assert res.returncode == 0
     assert b"ccphylo_tpu profile" in res.stderr
+
+
+@pytest.mark.parametrize("env_dir", [False, True])
+def test_configure_jax_cache_dir(tmp_path, env_dir):
+    """The compile cache goes to $JAX_COMPILATION_CACHE_DIR when it is
+    set, and to <repo>/.jax_cache otherwise."""
+    env = {"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin",
+           "JAX_PLATFORMS": "cpu"}
+    want = str(REPO / ".jax_cache")
+    if env_dir:
+        want = str(tmp_path / "cache")
+        env["JAX_COMPILATION_CACHE_DIR"] = want
+    code = ("from ccphylo_tpu.utils.jaxconfig import configure_jax; "
+            "print(configure_jax().config.jax_compilation_cache_dir)")
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, timeout=120, cwd=tmp_path)
+    assert res.returncode == 0, res.stderr.decode(errors="replace")
+    assert res.stdout.decode().strip() == want
